@@ -5,8 +5,8 @@ Reference counterpart: the published MPI weak/strong scaling tables
 efficiency). Here the domain grows with the mesh (fixed points/device) and
 the sharded step (GSPMD over the (x, y) mesh) is timed.
 
-On real multi-chip TPU hardware this measures ICI-collective scaling; on a
-single-host dev box run it over virtual devices to validate the harness:
+On several GPUs this measures scaling over NVLink; on a single-host dev
+box run it over virtual devices to validate the harness:
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     JAX_PLATFORMS=cpu python bench_scaling.py
@@ -24,11 +24,12 @@ from oceananigans_tpu import Bounded, BuoyancyTracer, Periodic, \
 from oceananigans_tpu.models import NonhydrostaticModel
 from oceananigans_tpu.parallel import Distributed, Partition, shard_state, \
     sharded_step_fn
+from oceananigans_tpu.platform import enable_compilation_cache
 
 
 def count_collectives(jitted, *args):
     """Collective instructions in the compiled HLO — the per-step
-    communication bound (VERDICT r1 #5: must be independent of the
+    communication bound (must be independent of the
     advection order on the explicit-halo path)."""
     import re
     hlo = jitted.lower(*args).compile().as_text()
@@ -151,9 +152,9 @@ def run_hydrostatic(n_devices, base=32, nz=16, inner=5):
 def run_cubed_sphere(R=1, panels=6, n=16, inner=3):
     """Cubed-sphere panel(+sub-panel) sharding probe: steps the shallow-
     water model over a ``cubed_sphere_partition`` mesh and counts the
-    collectives GSPMD emits for the inter-panel exchange gathers (STATUS
-    round-2 gap #3: these ride all-gathers rather than neighbor
-    permutes; this probe is the honest bound)."""
+    collectives GSPMD emits for the inter-panel exchange gathers (these
+    ride all-gathers rather than neighbor permutes; this probe is the
+    honest bound)."""
     from oceananigans_tpu.models.cubed_sphere import (
         CubedSphereShallowWaterModel, ConformalCubedSphereGrid,
         cubed_sphere_partition, panel_vector_components,
@@ -221,11 +222,12 @@ def run_cubed_sphere_explicit(R=1, panels=6, n=16, inner=3):
 
 
 def main():
+    enable_compilation_cache()
     if jax.devices()[0].platform == "cpu":
         print("# NOTE: virtual CPU devices share one host's cores — this "
               "run validates the sharded-step harness, NOT real scaling "
-              "(efficiency numbers are meaningless here; run on a TPU pod "
-              "slice for ICI scaling).")
+              "(efficiency numbers are meaningless here; run on several "
+              "GPUs for real scaling).")
     counts = [n for n in (1, 2, 4, 8) if n <= len(jax.devices())]
     results = []
     t1 = None

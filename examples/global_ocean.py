@@ -7,7 +7,7 @@ This is the reference's realistic-global-ocean configuration
 (``multi_region_models.jl:35-45`` regionalizes GridFittedBottom /
 FieldBoundaryConditions / SeawaterBuoyancy across the panels;
 ``multi_region_boundary_conditions.jl:1-62`` fills the wind-stress and
-heat-flux conditions) re-expressed on the stacked-panel TPU design: one
+heat-flux conditions) re-expressed on the stacked-panel design: one
 jitted step over (6, nx, ny, nz) arrays.
 """
 

@@ -2,7 +2,7 @@
 mesh (reference: distributed examples / Reactant sharding,
 ext/OceananigansReactantExt/Grids/sharded_grids.jl).
 
-Run on a TPU pod slice (or locally with
+Run on several GPUs (or locally with
 XLA_FLAGS=--xla_force_host_platform_device_count=8 JAX_PLATFORMS=cpu).
 For multi-host, call jax.distributed.initialize() first.
 """

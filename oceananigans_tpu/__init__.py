@@ -1,18 +1,19 @@
-"""oceananigans_tpu — a TPU-native (JAX/XLA/Pallas) ocean dynamical core.
+"""oceananigans_tpu — a JAX/XLA ocean dynamical core.
 
 A from-scratch reimplementation of the capabilities of Oceananigans.jl
-(reference: /root/reference, v0.96.19) designed for TPU hardware:
+(v0.96.19), in plain JAX that XLA compiles for the GPU and the CPU:
 
 - a functional core: immutable ``Grid`` pytrees + ``State`` pytrees stepped by
   pure, jit-compiled functions (no mutable Field objects, no kernel launches);
 - staggered Arakawa C-grid finite volume operators expressed as whole-array
   shifted ops that XLA fuses into a handful of HBM-bandwidth-bound kernels;
-- FFT / Fourier-tridiagonal pressure Poisson solvers on top of XLA's TPU FFT;
-- multi-chip scaling via ``jax.sharding.Mesh`` + ``shard_map`` halo exchange
-  (ICI neighbor collectives) rather than MPI.
+- FFT / Fourier-tridiagonal pressure Poisson solvers on top of XLA's FFT;
+- multi-device scaling via ``jax.sharding.Mesh`` + ``shard_map`` halo
+  exchange (neighbour collectives) rather than MPI.
 
+Platform-dependent choices live in :mod:`oceananigans_tpu.platform`.
 Layer order mirrors the reference's dependency order
-(``/root/reference/src/Oceananigans.jl:209-251``) but the implementation is
+(``src/Oceananigans.jl:209-251``) but the implementation is
 idiomatic JAX throughout.
 """
 

@@ -8,10 +8,10 @@ reconstruction (``centered_reconstruction.jl``), odd-order upwind
 per-direction composition (``flux_form_advection.jl``), CFL timescale
 (``cell_advection_timescale.jl``).
 
-TPU-native design: each reconstruction is a whole-array expression over
+Design: each reconstruction is a whole-array expression over
 shifted copies of the operand; XLA fuses the stencil + smoothness indicators
-+ nonlinear weights into one VPU loop, so WENO's high arithmetic intensity
-(~100 flops/point at order 5) runs out of registers/VMEM, not HBM. There are
++ nonlinear weights into one loop, so WENO's high arithmetic intensity
+(~100 flops/point at order 5) runs out of registers, not device memory. There are
 no data-dependent branches: upwinding is a ``where`` on the advecting
 velocity sign, which vectorizes.
 

@@ -5,7 +5,7 @@ classifications at ``boundary_condition_classifications.jl:15-64``, halo
 filling at ``fill_halo_regions.jl:50-80``, flux-into-tendency at
 ``apply_flux_bcs.jl``.
 
-TPU-native re-design: ``fill_halo_regions`` is a pure function
+Design: ``fill_halo_regions`` is a pure function
 ``array -> array`` that overwrites the halo rings according to the BC rules;
 there are no per-side kernel launches — the whole fill is a few fused
 dynamic-update-slices inside the jitted step. Axes are filled in x → y → z

@@ -9,7 +9,7 @@ an explicit vs vertically-implicit time discretization
 diffusion into a batched tridiagonal ``implicit_step``
 (``vertically_implicit_diffusion_solver.jl:38-60``).
 
-TPU-native design: fluxes are whole-array expressions with the same
+Design: fluxes are whole-array expressions with the same
 staggering as the advective fluxes, fused by XLA into the tendency kernel.
 Eddy coefficients (Smagorinsky, AMD, convective adjustment) are plain
 center-located arrays recomputed functionally each step. The implicit

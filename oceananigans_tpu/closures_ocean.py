@@ -7,7 +7,7 @@ Reference: ``src/TurbulenceClosures/turbulence_closure_implementations/``
 ``isopycnal_skew_symmetric_diffusivity.jl`` +
 ``isopycnal_rotation_tensor_components.jl``.
 
-These are compact TPU-native implementations of the same closure physics:
+These are compact whole-array implementations of the same closure physics:
 everything is a branch-free array expression; the vertical-implicit path
 reuses the batched Thomas solver.
 """

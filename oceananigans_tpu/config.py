@@ -17,19 +17,13 @@ import jax.numpy as jnp
 @dataclasses.dataclass
 class Config:
     #: default floating point dtype for new grids/fields. float32 is the
-    #: TPU-native choice; tests enable float64 (with jax_enable_x64) when
+    #: accelerator default; tests enable float64 (with jax_enable_x64) when
     #: validating against the Float64 reference.
     float_type: str = "float32"
 
     #: default halo width. 3 supports up to WENO-5 / Centered-6; grid
     #: constructors inflate it for higher-order schemes.
     halo: int = 3
-
-    #: run Pallas kernels in interpret mode (CPU emulation). Test-only
-    #: knob: lets the fused-kernel code paths (including per-shard kernels
-    #: inside ``shard_map``) run on the CPU mesh. Read at TRACE time, so
-    #: flip it before building/jitting a step, not between calls.
-    pallas_interpret: bool = False
 
     @property
     def float_dtype(self):

@@ -3,11 +3,11 @@
 Reference: ``src/Models/HydrostaticFreeSurfaceModels/
 slice_ensemble_model_mode.jl`` / ``single_column_model_mode.jl`` run
 ensembles of 1-D column models batched over the (i, j) plane (SURVEY.md
-§2.11, strategy 6). The TPU-native expression is ``jax.vmap`` over a
+§2.11, strategy 6). The expression here is ``jax.vmap`` over a
 leading ensemble axis of the state pytree: one jitted, fully-batched step
 advances every ensemble member — XLA vectorizes the column physics
-(CATKE, convective adjustment, implicit diffusion) across members on the
-VPU, and an extra mesh axis shards members across chips for free.
+(CATKE, convective adjustment, implicit diffusion) across members, and an
+extra mesh axis shards members across devices for free.
 """
 
 from __future__ import annotations

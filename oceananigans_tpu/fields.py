@@ -22,6 +22,7 @@ import numpy as np
 
 from oceananigans_tpu.config import config
 from oceananigans_tpu.grids.base import AXIS_NAMES, Center, Face
+from oceananigans_tpu.platform import matmul_precision
 
 LOC_U = (Face, Center, Center)
 LOC_V = (Center, Face, Center)
@@ -153,7 +154,8 @@ def regrid(src_grid, dst_grid, a, loc=LOC_C, axis=2):
                         _axis_edges(dst_grid, axis))
     ai = interior(src_grid, a)
     sub = {0: "sjk,ds->djk", 1: "isk,ds->idk", 2: "ijs,ds->ijd"}[axis]
-    out = jnp.einsum(sub, ai, jnp.asarray(W, ai.dtype))
+    out = jnp.einsum(sub, ai, jnp.asarray(W, ai.dtype),
+                     precision=matmul_precision(ai.dtype))
     res = new_field(dst_grid, a.dtype)
     sx, sy, sz = dst_grid.interior_slices
     return res.at[sx, sy, sz].set(out)

@@ -1,7 +1,7 @@
 """Grids: geometry + topology for staggered Arakawa C-grids.
 
 Reference layer: ``src/Grids/`` (see SURVEY.md §2.2). Key differences from the
-reference, chosen for TPU/XLA:
+reference, chosen for JAX/XLA:
 
 - Grids are immutable pytrees (``jax.tree_util.register_dataclass``): sizes,
   topology and halo widths are static metadata (hashable, drive tracing);

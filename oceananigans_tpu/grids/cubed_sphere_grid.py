@@ -3,7 +3,7 @@
 Reference: ``src/MultiRegion/cubed_sphere_grid.jl`` +
 ``cubed_sphere_connectivity.jl`` + ``cubed_sphere_partitions.jl``
 (SURVEY.md §2.17). The reference builds a MultiRegion of 6 panels with
-hand-coded rotated connectivity; here the TPU-native layout is a STACKED
+hand-coded rotated connectivity; here the layout here is a STACKED
 panel axis — fields are (6, nx, ny, nz) arrays, panel-local operators
 ``vmap`` over the leading axis — and the connectivity (which neighbor
 panel, which side, index order, velocity-component rotation) is derived

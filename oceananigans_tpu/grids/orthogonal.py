@@ -342,7 +342,7 @@ def fill_zipper_north(a, grid, loc, sign):
       y-Center: halo row Hy+Ny-1+h  <- interior row Hy+Ny-1-h
       y-Face:   halo row Hy+Ny-1+h  <- interior row Hy+Ny-h
 
-    TPU-native/distributed form (reference
+    whole-array/distributed form (reference
     ``distributed_tripolar_grid.jl`` exchanges each x-rank with its
     mirror rank): the fold reversal is expressed as ``jnp.flip`` (+
     ``jnp.roll`` by one for x-Face fields) over the halo-extended,

@@ -7,9 +7,9 @@ Reference layer: ``src/ImmersedBoundaries/`` (SURVEY.md §2.7) —
 (``partial_cell_bottom.jl:11``), ``mask_immersed_field!``
 (``mask_immersed_field.jl``).
 
-TPU-native design: dense boolean masks + ``where`` instead of the
-reference's active-cells gather maps (``active_cells_map.jl:13-30``) — TPUs
-strongly prefer dense masked compute over gather/scatter, and for ocean
+Design: dense boolean masks + ``where`` instead of the
+reference's active-cells gather maps (``active_cells_map.jl:13-30``) — whole-array
+masked compute fuses where gather/scatter does not, and for ocean
 domains (mostly-fluid) the masked FLOPs are cheaper than the data movement
 a packed index list would cost. Solid faces carry zero velocity; tendencies
 are masked; the pressure Poisson problem becomes the masked 7-point

@@ -4,7 +4,7 @@ sphere.
 Reference: ``src/MultiRegion/multi_region_models.jl`` +
 ``validation/multi_region/cubed_sphere_dynamics.jl`` (SURVEY.md §2.17).
 The reference steps a MultiRegion of six panel grids with per-region
-kernel launches and rotated halo fills; the TPU-native design stacks the
+kernel launches and rotated halo fills; this design stacks the
 panels on a leading axis — fields are (6, nx, ny, nz) arrays, the
 per-panel vector-invariant tendency ``vmap``s over the panel axis, and
 the inter-panel exchange is the numeric gather map of
@@ -1069,8 +1069,8 @@ class CubedSphereHydrostaticModel:
 
         # --- immersed bathymetry: wet masks + wet-column depths --------
         # (reference ImmersedMultiRegionGrid, multi_region_grid.jl:190-198;
-        # dense-mask design per SURVEY §7 — TPUs prefer masked whole-array
-        # compute over gather/scatter active-cell maps)
+        # dense-mask design per SURVEY §7 — masked whole-array compute
+        # instead of gather/scatter active-cell maps)
         self.bathymetry = bathymetry
         self._wet_c = self._wet_u = self._wet_v = self._wet_w = None
         self._Hu = self._Hv = self._Hc = None

@@ -8,14 +8,14 @@ continuity ``compute_w_from_continuity.jl``, free surfaces
 ``implicit_free_surface.jl:12``, AB2 step
 ``hydrostatic_free_surface_ab2_step.jl:12-33``.
 
-TPU-native design notes:
+Design notes:
 - Prognostic state: u, v, tracers, η. w is diagnosed from continuity by a
   z-``cumsum`` (a log-depth scan XLA lowers well) instead of a per-column
   loop kernel.
 - The split-explicit barotropic substepping is ONE ``lax.scan`` over the
   substep weights inside the jitted step (the reference unrolls ~50 tiny
   GPU kernels and is latency-bound there; a scan of fused 2-D ops is the
-  TPU answer, reference ``step_split_explicit_free_surface.jl:100-115``).
+  answer here, reference ``step_split_explicit_free_surface.jl:100-115``).
 - The free-surface solver choice is static config; no data-dependent
   branching anywhere.
 """
@@ -50,6 +50,7 @@ from oceananigans_tpu.ops.operators import (
     ix_c, ix_f, iy_c, iy_f, iz_c, shift,
     vorticity_z_ff,
 )
+from oceananigans_tpu.platform import poisson_transform
 from oceananigans_tpu.timesteppers import Clock, ab2_coefficients, tick
 
 __all__ = ["HydrostaticFreeSurfaceModel", "HydrostaticState",
@@ -477,7 +478,7 @@ class ImplicitFreeSurface:
                  solver_method="fft", maxiter=200, reltol=1e-9,
                  preconditioner="jacobi"):
         """``preconditioner`` (matrix method): "jacobi" or "spai"/int —
-        the Neumann-polynomial stencil approximate inverse (TPU-native
+        the Neumann-polynomial stencil approximate inverse (whole-array
         analog of the reference's SPAI option,
         ``sparse_approximate_inverse.jl``; see
         ``solvers/matrix_solver.py``)."""
@@ -674,7 +675,7 @@ class HydrostaticFreeSurfaceModel:
                  closure=None, forcing=None, boundary_conditions=None,
                  vertical_coordinate=None, timestepper="quasi_ab2",
                  particles=None, biogeochemistry=None, stokes_drift=None,
-                 auxiliary_fields=None, fused_kernels="auto"):
+                 auxiliary_fields=None):
         # feature-parity fields of the reference struct
         # (hydrostatic_free_surface_model.jl:40-47)
         self.particles = particles
@@ -731,46 +732,6 @@ class HydrostaticFreeSurfaceModel:
 
         self.grid = grid
         self.momentum_advection = momentum_advection
-        # fused Pallas vector-invariant momentum kernel (ops/pallas_vi):
-        # "auto" engages it on TPU when the grid/scheme layout qualifies
-        from oceananigans_tpu.ops.pallas_vi import vi_available as _via
-        import jax as _jax
-        _ok = (isinstance(momentum_advection, VectorInvariant)
-               and _via(grid, momentum_advection))
-        # "auto" also refuses heavy z (lane) padding: a 68-lane extent
-        # padded to 128 does ~2x wasted VPU work in the VMEM slabs —
-        # measured ON-CHIP as a 27 -> 50 ms/step pessimization at
-        # 360x160x60. Explicit fused_kernels=True still forces the
-        # kernel on.
-        nztot = grid.N[2] + 2 * grid.H[2]
-        _lane_ok = (-(-nztot // 128) * 128) * 4 <= nztot * 5
-        # nz-thin configs qualify through the TRANSPOSED (z, y, x) VI
-        # kernel (round-5 lane-major relayout)
-        from oceananigans_tpu.ops.pallas_vi import (
-            vi_transposed_layout_preferred as _vtlp,
-        )
-        _ok_zyx = (isinstance(momentum_advection, VectorInvariant)
-                   and _vtlp(grid, momentum_advection))
-        if fused_kernels == "auto":
-            self.fused_kernels = (((_ok and _lane_ok) or _ok_zyx)
-                                  and _jax.default_backend() != "cpu")
-        else:
-            self.fused_kernels = (_ok or _ok_zyx) and bool(fused_kernels)
-        # fused generic-order WENO tracer advection (ops/pallas_tracer);
-        # heavy-lane-padding configs (nz ≈ 60) now qualify through the
-        # TRANSPOSED (z, y, x) layout (round-5 lane-major relayout),
-        # which sidesteps the padding the _lane_ok gate guards against
-        from oceananigans_tpu.ops.pallas_tracer import (
-            tracer_fusion_available as _tfa,
-            transposed_layout_preferred as _tlp,
-        )
-        _tok = _tfa(grid, tracer_advection)
-        if fused_kernels == "auto":
-            self.fused_tracer = (
-                _tok and (_lane_ok or _tlp(grid, tracer_advection))
-                and _jax.default_backend() != "cpu")
-        else:
-            self.fused_tracer = _tok and bool(fused_kernels)
         b = getattr(tracer_advection, "bind_grid", None)
         self.tracer_advection = b(grid) if b is not None \
             else tracer_advection
@@ -1106,28 +1067,8 @@ class HydrostaticFreeSurfaceModel:
 
         ma = self.momentum_advection
         if isinstance(ma, VectorInvariant):
-            if getattr(self, "fused_kernels", False) and g is self.grid:
-                # one HBM pass for both momentum tendencies (the σ-scaled
-                # ZStar grid stays on the XLA path: metrics vary per
-                # step); on CPU (forced on, e.g. in tests) the kernel
-                # runs in interpret mode
-                import jax as _jax
-
-                from oceananigans_tpu.ops.pallas_vi import (
-                    vi_momentum_tendency, vi_momentum_tendency_zyx,
-                    vi_transposed_layout_preferred,
-                )
-                if vi_transposed_layout_preferred(self.grid, ma):
-                    Gu, Gv = vi_momentum_tendency_zyx(
-                        self.grid, ma, u, v, w,
-                        interpret=_jax.default_backend() == "cpu")
-                else:
-                    Gu, Gv = vi_momentum_tendency(
-                        self.grid, ma, u, v, w,
-                        interpret=_jax.default_backend() == "cpu")
-            else:
-                Gu = ma.u_tendency(g, u, v, w)
-                Gv = ma.v_tendency(g, u, v, w)
+            Gu = ma.u_tendency(g, u, v, w)
+            Gv = ma.v_tendency(g, u, v, w)
         elif ma is None:
             Gu = jnp.zeros_like(u)
             Gv = jnp.zeros_like(v)
@@ -1202,23 +1143,6 @@ class HydrostaticFreeSurfaceModel:
         Gu = mask_immersed_field(g, Gu, LOC_U)
         Gv = mask_immersed_field(g, Gv, LOC_V)
 
-        # fused tracer advection: one Pallas pass reads the velocities
-        # once for every tracer (tracers with AdvectiveForcing slip
-        # velocities keep the XLA path — their advecting field differs)
-        fused_Gc = {}
-        if getattr(self, "fused_tracer", False) and g is self.grid:
-            from oceananigans_tpu.ops.pallas_tracer import (
-                weno_tracer_tendencies,
-            )
-            eligible = [n for n in self.tracer_names
-                        if n not in self.advective_forcings]
-            if eligible:
-                import jax as _jax
-                fused_Gc = weno_tracer_tendencies(
-                    self.grid, self.tracer_advection, u, v, w,
-                    {n: tracers[n] for n in eligible},
-                    interpret=_jax.default_backend() == "cpu")
-
         Gtracers = {}
         for name in self.tracer_names:
             c = tracers[name]
@@ -1226,10 +1150,7 @@ class HydrostaticFreeSurfaceModel:
             for af in self.advective_forcings.get(name, ()):
                 ua, va, wa = af.velocities(g)
                 uta, vta, wta = uta + ua, vta + va, wta + wa
-            if name in fused_Gc:
-                Gc = fused_Gc[name]
-            else:
-                Gc = -div_Uc(g, self.tracer_advection, uta, vta, wta, c)
+            Gc = -div_Uc(g, self.tracer_advection, uta, vta, wta, c)
             Gc = Gc + closures_mod.tracer_flux_divergence(
                 self.closure, g, name, c, tracers, diffusivities,
                 include_implicit=False)
@@ -1446,10 +1367,7 @@ class HydrostaticFreeSurfaceModel:
             H0 = float(g.Lz)    # flat-bottom depth (FFT path requirement)
             sx, sy, _ = g.interior_slices
             r = rhs[sx, sy, :]
-            if jax.default_backend() != "cpu":
-                # matmul eigenbasis path: the composed dct/fft chain
-                # miscomputes on the TPU backend (see
-                # solvers/matmul_poisson.py) and the MXU is faster anyway
+            if poisson_transform() == "matmul":
                 from oceananigans_tpu.solvers.matmul_poisson import (
                     MatmulHorizontalBasis,
                 )

@@ -129,17 +129,6 @@ class ShallowWaterModel:
                                       self.locations[name])
             for name in self.locations
         }
-        # fused Pallas RK3 stage (auto on TPU; see ops/pallas_sw.py):
-        # one HBM pass per stage for the conservative-form benchmark
-        # configuration
-        import jax as _jax
-
-        from oceananigans_tpu.ops.pallas_sw import sw_fused_available
-        try:
-            avail = sw_fused_available(grid, self)
-        except Exception:
-            avail = False
-        self.fused_rk3 = avail and _jax.default_backend() != "cpu"
 
     tree_flatten = lambda self: ((self.grid,), _ModelAux(self))
 
@@ -314,18 +303,6 @@ class ShallowWaterModel:
         """RK3 (the reference's only SW stepper,
         ``rk3_substep_shallow_water_model.jl``)."""
         dt = jnp.asarray(dt, state.h.dtype)
-        if getattr(self, "fused_rk3", False):
-            from oceananigans_tpu.ops.pallas_sw import sw_rk3_stage
-            for gamma, zeta in RK3_STAGES:
-                state = self.fill_state_halos(state)
-                uh, vh, h, Guh, Gvh, Gh = sw_rk3_stage(
-                    self.grid, state.uh, state.vh, state.h,
-                    state.Guh, state.Gvh, state.Gh,
-                    dt * gamma, dt * zeta, self.g)
-                state = _replace(state, uh=uh, vh=vh, h=h,
-                                 Guh=Guh, Gvh=Gvh, Gh=Gh)
-            state = _replace(state, clock=tick(state.clock, dt))
-            return self.fill_state_halos(state)
         G_prev = (state.Guh, state.Gvh, state.Gh, state.Gtracers)
         for gamma, zeta in RK3_STAGES:
             state = self.fill_state_halos(state)

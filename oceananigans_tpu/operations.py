@@ -4,7 +4,7 @@ Reference layer: ``src/AbstractOperations/`` (SURVEY.md §2.6). The
 reference builds *lazy* expression trees (UnaryOperation/BinaryOperation/
 Derivative/`@at`) that a `compute!` pass materializes on GPU. Under XLA the
 laziness is free: any composition of the functions below fuses inside the
-jitted caller, so the TPU-native analog is plain functions over arrays —
+jitted caller, so the analog here is plain functions over arrays —
 `KernelFunctionOperation` ≡ "write a function", `ComputedField` caching ≡
 XLA common-subexpression elimination.
 

@@ -1,6 +1,6 @@
 """Discrete calculus on the staggered C-grid, as whole-array shifted ops.
 
-This is the TPU-native re-expression of the reference's ~500 inlined
+This is the whole-array re-expression of the reference's ~500 inlined
 ``(i,j,k,grid)`` stencil functions (``src/Operators/``: difference_operators,
 interpolation_operators, derivative_operators, divergence/vorticity/laplacian;
 see SURVEY.md §2.3). Instead of per-index scalar functions launched inside

@@ -19,7 +19,6 @@ import os
 import re
 from typing import Optional
 
-import h5py
 import jax.numpy as jnp
 import numpy as np
 
@@ -31,6 +30,18 @@ from oceananigans_tpu.utils.schedules import (
 __all__ = ["HDF5Writer", "JLD2Writer", "Checkpointer", "OrbaxCheckpointer",
            "FieldTimeSeries", "FileSizeLimit", "InMemory", "OnDisk",
            "load_field_time_series", "WindowedTimeAverage"]
+
+
+def _h5py():
+    """h5py, imported when a writer or reader first needs it, so that
+    importing the package does not require it."""
+    try:
+        import h5py
+    except ImportError as e:
+        raise ImportError(
+            "HDF5 output and input need the h5py package, which is not "
+            "installed") from e
+    return h5py
 
 
 def _fetch(model, state, output, with_halos=False):
@@ -126,7 +137,7 @@ class HDF5Writer:
 
     def _init_file(self, sim, shapes):
         from oceananigans_tpu.grids.base import Face
-        with h5py.File(self.filename, "a") as f:
+        with _h5py().File(self.filename, "a") as f:
             f.create_dataset("times", shape=(0,), maxshape=(None,),
                              dtype=np.float64)
             f.create_dataset("iterations", shape=(0,), maxshape=(None,),
@@ -164,7 +175,7 @@ class HDF5Writer:
                 for name, out in self.outputs.items()}
         if not self._initialized:
             self._init_file(sim, {k: v.shape for k, v in data.items()})
-        with h5py.File(self.filename, "a") as f:
+        with _h5py().File(self.filename, "a") as f:
             n = f["times"].shape[0]
             f["times"].resize((n + 1,))
             f["times"][n] = float(sim.state.clock.time)
@@ -337,7 +348,7 @@ class NetCDFWriter:
     def _init_file(self, sim, shapes):
         g = sim.model.grid
         panel, axes, aux, coords = self._coordinate_schema(g)
-        with h5py.File(self.filename, "a") as f:
+        with _h5py().File(self.filename, "a") as f:
             for key, val in self.global_attributes.items():
                 f.attrs[key] = val
             f.attrs["Conventions"] = "CF-1.8"
@@ -429,7 +440,7 @@ class NetCDFWriter:
                 for name, out in self.outputs.items()}
         if not self._initialized:
             self._init_file(sim, {k: v.shape for k, v in data.items()})
-        with h5py.File(self.filename, "a") as f:
+        with _h5py().File(self.filename, "a") as f:
             n = f["time"].shape[0]
             f["time"].resize((n + 1,))
             f["time"][n] = float(sim.state.clock.time)
@@ -488,7 +499,7 @@ class Checkpointer:
         it = int(sim.state.clock.iteration)
         path = self._path(it)
         leaves, treedef = jax.tree_util.tree_flatten_with_path(sim.state)
-        with h5py.File(path, "w") as f:
+        with _h5py().File(path, "w") as f:
             for keypath, leaf in leaves:
                 key = jax.tree_util.keystr(keypath)
                 f.create_dataset(key, data=np.asarray(leaf))
@@ -514,7 +525,7 @@ class Checkpointer:
             path = ckpts[-1]
         leaves, treedef = jax.tree_util.tree_flatten_with_path(
             template_state)
-        with h5py.File(path, "r") as f:
+        with _h5py().File(path, "r") as f:
             new_leaves = []
             for keypath, leaf in leaves:
                 key = jax.tree_util.keystr(keypath)
@@ -641,7 +652,7 @@ class FieldTimeSeries:
         return len(self.times)
 
     def _read(self, i):
-        with h5py.File(self.filename, "r") as f:
+        with _h5py().File(self.filename, "r") as f:
             return np.asarray(f["fields"][self.name][i])
 
     def __getitem__(self, i):
@@ -655,7 +666,7 @@ class FieldTimeSeries:
         if self._window is None or not (
                 self._window_start <= i < self._window_start + n):
             start = min(max(i, 0), max(len(self.times) - n, 0))
-            with h5py.File(self.filename, "r") as f:
+            with _h5py().File(self.filename, "r") as f:
                 self._window = np.asarray(
                     f["fields"][self.name][start:start + n])
             self._window_start = start
@@ -679,7 +690,7 @@ def load_field_time_series(filename, name, backend=None):
     (default), ``InMemory(n)``, or ``OnDisk()``. Multi-part files from
     ``file_splitting`` are NOT auto-concatenated; open each part."""
     backend = backend or InMemory()
-    with h5py.File(filename, "r") as f:
+    with _h5py().File(filename, "r") as f:
         times = np.asarray(f["times"])
         data = None
         if isinstance(backend, InMemory) and backend.length is None:
@@ -696,7 +707,7 @@ class FieldDataset:
     def __init__(self, filename, backend=None):
         self.filename = filename
         self.backend = backend
-        with h5py.File(filename, "r") as f:
+        with _h5py().File(filename, "r") as f:
             self.names = tuple(f["fields"].keys())
         self._series = {}
 

@@ -21,9 +21,8 @@ exactly like the corresponding window of the serial panel frame.
 
 Reference: ``src/MultiRegion/cubed_sphere_partitions.jl:7-40`` (Rx·Ry
 ranks per panel) + ``multi_region_boundary_conditions.jl`` (the
-device-to-device rotated halo fill); the TPU-native mechanism is
-mirror-rank ``ppermute`` over a ("panel", "x", "y") device mesh riding
-the ICI torus.
+device-to-device rotated halo fill); the mechanism here is
+mirror-rank ``ppermute`` over a ("panel", "x", "y") device mesh.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Distributed (multi-chip) execution: mesh construction + GSPMD sharding.
+"""Distributed (multi-device) execution: mesh construction + GSPMD sharding.
 
 Reference layer: ``src/DistributedComputations/`` (SURVEY.md §2.11). The
 reference's MPI machinery (ranks, tags, Isend/Irecv, connectivity) maps to
@@ -9,18 +9,18 @@ a single ``jax.sharding.Mesh`` with named axes ``("x", "y")`` and GSPMD:
 - halo exchange                  -> compiler-inserted collective-permutes at
   shard edges (or the explicit path in :mod:`halo_exchange`)
 - ``all_reduce``/global norms    -> ``jnp.sum`` on sharded arrays (lowers
-  to ``psum`` over ICI)
+  to ``psum``)
 - pencil-transpose FFT           -> XLA resharding around the FFT HLO (or
   the explicit ``all_to_all`` path in :mod:`distributed_fft`)
 - ``reconstruct_global_grid``    -> trivial: arrays are global jax.Arrays
 
 The reference's interior/halo communication-computation overlap
 (``interleave_communication_and_computation.jl``) is handled by XLA's
-latency-hiding scheduler on TPU.
+latency-hiding scheduler.
 
 Multi-host: call ``jax.distributed.initialize()`` before building the
-``Distributed`` object and the same code runs multi-controller SPMD over
-DCN+ICI.
+``Distributed`` object and the same code runs multi-controller SPMD across
+hosts.
 """
 
 from __future__ import annotations
@@ -114,25 +114,6 @@ def sharded_step_fn(model, dist: Distributed, dt):
     """A jitted step with sharding constraints pinned on inputs/outputs so
     XLA partitions the whole step over the mesh."""
     dist.validate_grid(model.grid)
-    if (getattr(model, "fused_kernels", False)
-            or getattr(model, "fused_correction", False)
-            or getattr(model, "fused_tracer", False)
-            or getattr(getattr(model, "pressure_solver", None),
-                       "fused", None) == "auto"):
-        # Pallas custom-calls are opaque to GSPMD: the partitioner would
-        # replicate them (full-gathering every operand onto every
-        # device). The XLA whole-array path partitions cleanly, so the
-        # distributed step always uses it — including the fused
-        # pressure-correction and fused Poisson middle-stage kernels.
-        import copy
-        model = copy.copy(model)
-        model.fused_kernels = False
-        model.fused_correction = False
-        model.fused_tracer = False
-        if hasattr(model, "pressure_solver"):
-            model.pressure_solver = copy.copy(model.pressure_solver)
-            if hasattr(model.pressure_solver, "fused"):
-                model.pressure_solver.fused = False
     fs = dist.field_sharding()
 
     def constrained(state):

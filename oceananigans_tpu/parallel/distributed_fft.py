@@ -3,17 +3,16 @@
 Reference: ``src/DistributedComputations/distributed_fft_based_poisson_
 solver.jl:10-80`` — transform z, transpose z→y (pack → MPI.Alltoallv! →
 unpack), transform y, transpose y→x, transform x, divide by eigenvalues,
-reverse. TPU-native: the transposes are ``jax.lax.all_to_all`` collectives
-inside ``shard_map`` over the (x, y) mesh — the Ulysses-style re-sharding
-that rides the ICI torus; z stays local throughout the vertical (DCT)
+reverse. Here: the transposes are ``jax.lax.all_to_all`` collectives
+inside ``shard_map`` over the (x, y) mesh — the Ulysses-style
+re-sharding; z stays local throughout the vertical (DCT)
 transform, matching the reference's constraint
 (``distributed_fft_based_poisson_solver.jl:49-51``).
 
 The GSPMD path (jit the serial solver on sharded arrays and let XLA insert
 the resharding) is the default in the models; this explicit version is the
 hand-scheduled alternative for when the compiler's collective placement is
-suboptimal, and the building block for future Pallas-fused transpose+FFT
-stages.
+suboptimal.
 """
 
 from __future__ import annotations
@@ -39,8 +38,8 @@ class DistributedFFTPoissonSolver:
     bases — real-Fourier rows on Periodic axes, DCT-II rows on Bounded
     ones) replace the fft/dct transforms: all-real arithmetic, correct
     on ANY topology mix (the earlier fft-only version silently used the
-    wrong basis on Bounded x/y), no composed-FFT TPU miscompile risk,
-    and the contractions ride the MXU.
+    wrong basis on Bounded x/y), and the contractions are dense
+    matrix products.
 
     Layout dance (local shapes, mesh (px, py)):
         (Nx/px, Ny/py, Nz)  --Tz (local)-->  same
@@ -168,9 +167,8 @@ class DistributedFourierTridiagonalSolver:
 
     The horizontal transforms are ORTHONORMAL-BASIS MATMULS (the
     ``MatmulPoissonSolver`` bases) rather than fft/dct: all-real
-    arithmetic with no composed fft→dct chain (which miscompiles on the
-    TPU backend — see ``solvers/matmul_poisson.py``), and the
-    contractions ride the MXU.
+    arithmetic with no composed fft→dct chain, and the contractions are
+    dense matrix products.
 
     Layout dance (local shapes, mesh (px, py)):
         (Nx/px, Ny/py, Nz)

@@ -1,13 +1,13 @@
 """Explicit halo exchange: shard_map + ppermute neighbor collectives.
 
 Reference: ``src/DistributedComputations/halo_communication.jl`` — the MPI
-Isend/Irecv halo exchange with structured tags. TPU-native equivalent: each
+Isend/Irecv halo exchange with structured tags. Equivalent here: each
 shard sends its edge strips to its mesh neighbors with
-``jax.lax.ppermute`` (nearest-neighbor hops that ride the ICI torus), all
+``jax.lax.ppermute`` (nearest-neighbor hops), all
 inside ``shard_map``. No tags or requests: ordering is compiler-scheduled.
 
-This is the *explicit* path, needed when a Pallas kernel wants materialized
-local halos (SURVEY.md §7 design stance). The default model path instead
+This is the *explicit* path, for code that wants materialized local
+halos (SURVEY.md §7 design stance). The default model path instead
 uses GSPMD: whole-array stencils on sharded arrays compile to the same
 collective-permutes automatically.
 """
@@ -28,7 +28,7 @@ __all__ = ["halo_exchange", "halo_exchange_spec",
 
 # ---------------------------------------------------------------------------
 # Local-halos layout: each shard's block carries its OWN halo strips (the
-# layout a Pallas kernel consumes), unlike the model's global layout where
+# layout a shard-local stencil consumes), unlike the model's global layout where
 # only the domain edges have halo slots. Shapes:
 #   global interior (Nx, Ny, Nz)  <->  local layout (px·(nxl+2Hx), ...)
 # ---------------------------------------------------------------------------

@@ -7,7 +7,7 @@ forward-Euler advection with velocity interpolation
 bounce-back, tracked-field interpolation
 (``update_lagrangian_particle_properties.jl``).
 
-TPU-native design: particles are a struct-of-arrays pytree ``(x, y, z,
+Design: particles are a struct-of-arrays pytree ``(x, y, z,
 properties...)``; advection is trilinear interpolation ``vmap``-ed over the
 particle batch — one fused gather kernel per step, no per-particle loops.
 """

@@ -6,7 +6,7 @@ Reference layer: ``src/Simulations/`` (SURVEY.md §2.15) — ``Simulation``
 (``time_step_wizard.jl:5-14``), ``NaNChecker``
 (``src/Models/nan_checker.jl:3-31``).
 
-TPU-native design: the schedule machinery stays outside the compiled region
+Design: the schedule machinery stays outside the compiled region
 (the Reactant lesson, SURVEY.md §3.5); between actuation times the driver
 advances several steps inside ONE jitted ``lax.fori_loop`` dispatch, so the
 host loop costs one dispatch per output window, not per step.
@@ -50,7 +50,7 @@ class Callback:
     """func(simulation) on a schedule (reference ``callback.jl:7``);
     ``callsite`` is one of ``TimeStepCallsite`` (default),
     ``UpdateStateCallsite``, or ``TendencyCallsite`` (see the constants
-    above for the TPU-native semantics of each)."""
+    above for the semantics of each here)."""
 
     def __init__(self, func, schedule=None, callsite=TimeStepCallsite):
         self.func = func

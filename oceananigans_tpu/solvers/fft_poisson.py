@@ -4,7 +4,7 @@ Eigenfunction expansion of the 2nd-order staggered Laplacian: forward
 transforms (FFT on periodic axes, DCT-II on bounded axes), divide by the sum
 of per-axis discrete eigenvalues, zero the mean mode, inverse transforms
 (reference ``src/Solvers/fft_based_poisson_solver.jl:95-125`` +
-``poisson_eigenvalues.jl``). On TPU the transforms are XLA FFT HLOs; DCT is
+``poisson_eigenvalues.jl``). The transforms are XLA FFT HLOs; DCT is
 the permuted-FFT construction in :mod:`transforms` — no host round trips,
 the whole solve jit-fuses into the pressure step.
 
@@ -69,7 +69,7 @@ class FFTPoissonSolver:
                 self.dct_axes.append(axis)
         # the first periodic axis uses a REAL transform: the input is real,
         # so its spectrum is Hermitian — rfft halves the data every
-        # downstream transform touches (big HBM-bandwidth win on TPU)
+        # downstream transform touches (half the device-memory traffic)
         self.rfft_axis = self.fft_axes[0] if self.fft_axes else None
         self.cfft_axes = self.fft_axes[1:]
         if self.rfft_axis is not None:

@@ -1,24 +1,22 @@
-"""Poisson solver with transforms as MXU matmuls.
+"""Poisson solver with transforms as dense matrix products.
 
 Reference capability: ``fft_based_poisson_solver.jl`` (same separable
-eigenfunction method). TPU-native twist: XLA's TPU FFT is far from the
-hardware roofline, but a length-N transform is just an N×N matrix — and
-the MXU multiplies 256×256 matrices at petaflop-class rates. Each axis
+eigenfunction method). A length-N transform is an N×N matrix: each axis
 is transformed by an ORTHONORMAL real basis of 1-D Laplacian
 eigenvectors (DCT-II for Bounded/Neumann axes, the real Fourier
 cos/sin basis for Periodic axes), so the inverse transform is the
 transpose and everything stays real: the whole solve is six einsums and
-one elementwise multiply. ~4x faster than the XLA FFT path at 256³ on
-one v5e chip.
+one elementwise multiply, 2·N⁴ flops each on an N³ grid. Which of this
+and the FFT chain a platform uses is decided in ``platform.py``.
 """
 
 from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
-from jax import lax
-
 from oceananigans_tpu.grids.base import Bounded, Connected, Flat, Periodic
+
+from oceananigans_tpu.platform import matmul_precision
 
 __all__ = ["MatmulPoissonSolver"]
 
@@ -93,25 +91,14 @@ class MatmulPoissonSolver:
                       for a, l in enumerate(lams))
         self.inv_lam = np.where(lam_sum == 0, 0.0,
                                 1.0 / np.where(lam_sum == 0, 1.0, lam_sum))
-        self.lams = lams
-        #: False (six XLA einsums), True/"auto" (fused Pallas middle
-        #: stage), or "interpret". Default False: measured on a real v5e
-        #: (round 3), XLA pipelines the einsum chain as well as the hand
-        #: kernel (8.40 vs 8.40 ms full step at 256³), so the simpler
-        #: path wins; the kernel is kept for configs where einsum fusion
-        #: regresses.
-        self.fused = False
-        #: matmul precision: "auto" = 3-pass bf16 (HIGH) for float32 —
-        #: measured identical projection residual to HIGHEST at f32
-        #: (max|div| 1.75e-7 both, 50 steps @256³) for ~0.7 ms/step less
-        #: MXU time — and HIGHEST for float64/x64 parity runs.
+        #: matmul precision: "auto" takes the platform's choice
+        #: (``platform.matmul_precision``), or an explicit lax.Precision
         self.precision = "auto"
 
     def _precision(self, dtype):
         if self.precision != "auto":
             return self.precision
-        return (lax.Precision.HIGH if np.dtype(dtype) == np.float32
-                else lax.Precision.HIGHEST)
+        return matmul_precision(dtype)
 
     def _apply(self, x, axis, transpose):
         T = self.T[axis]
@@ -125,20 +112,6 @@ class MatmulPoissonSolver:
 
     def solve(self, rhs):
         """rhs: interior-shaped (Nx, Ny, Nz) -> φ with zero mean."""
-        from oceananigans_tpu.ops.pallas_poisson import (
-            fused_middle_available, fused_middle_solve,
-        )
-        use_fused = (fused_middle_available(self, rhs.dtype)
-                     if self.fused == "auto" else bool(self.fused))
-        if use_fused:
-            # one Pallas pass for y/z transforms + λ⁻¹ scale: 5 HBM round
-            # trips -> 1 (the x-axis contraction needs the full extent,
-            # so it stays outside as two einsums)
-            x = self._apply(rhs, 0, transpose=False)
-            x = fused_middle_solve(x, self.T[1], self.T[2], self.lams[0],
-                                   self.lams[1], self.lams[2],
-                                   interpret=(self.fused == "interpret"))
-            return self._apply(x, 0, transpose=True)
         x = rhs
         for axis in range(3):
             x = self._apply(x, axis, transpose=False)
@@ -150,8 +123,8 @@ class MatmulPoissonSolver:
 
 class MatmulHorizontalBasis:
     """2-D horizontal eigen-transform via matmul bases, for the implicit
-    free-surface Helmholtz solve on TPU (the composed dct/fft chain
-    miscomputes there; see MatmulPoissonSolver note)."""
+    free-surface Helmholtz solve on platforms whose
+    ``platform.poisson_transform`` is "matmul"."""
 
     def __init__(self, grid):
         self.T = []
@@ -179,8 +152,7 @@ class MatmulHorizontalBasis:
     def _precision(self, dtype):
         if self.precision != "auto":
             return self.precision
-        return (lax.Precision.HIGH if np.dtype(dtype) == np.float32
-                else lax.Precision.HIGHEST)
+        return matmul_precision(dtype)
 
     def _apply(self, x, axis, transpose):
         T = self.T[axis]

@@ -6,9 +6,9 @@ grid metrics, solved with a preconditioned Krylov method, used by the
 ``MatrixImplicitFreeSurfaceSolver``
 (``matrix_implicit_free_surface_solver.jl:18``).
 
-TPU-native re-design: no sparse formats. The seven diagonals are DENSE
+Design: no sparse formats. The seven diagonals are DENSE
 per-cell coefficient arrays and the matvec is seven fused multiply-adds
-with shifted operands (``jnp.roll``) — the layout the VPU actually wants;
+with shifted operands (``jnp.roll``) — a layout that vectorizes;
 sparse gather/scatter would defeat XLA vectorization. The preconditioner
 is the inverse diagonal (Jacobi), the reference's default-strength
 choice (its SPAI option approximates the same thing).
@@ -88,12 +88,12 @@ class HeptadiagonalIterativeSolver:
         choice);
       - ``"spai"`` (or an int polynomial degree k >= 1) — truncated
         Neumann-series approximate inverse
-        M = (I + N + ... + N^k) D⁻¹ with N = I − D⁻¹A: the TPU-native
+        M = (I + N + ... + N^k) D⁻¹ with N = I − D⁻¹A: the dense
         analog of the reference's sparse approximate inverse
         (``sparse_approximate_inverse.jl`` builds an explicit sparse
         M ≈ A⁻¹ applied as a sparse matvec; here the approximate inverse
         is applied as k extra dense-stencil matvecs, which is the form
-        the VPU vectorizes — no sparse gather/scatter). Symmetric, and
+        that vectorizes — no sparse gather/scatter). Symmetric, and
         positive-definite for the diagonally-dominant conductance
         stencils this solver sees, so CG theory still applies.
         ``"spai"`` uses k = 2; an ILU analog is deliberately absent

@@ -9,8 +9,7 @@ models/nonhydrostatic/pressure.py for the immersed path).
 
 from __future__ import annotations
 
-import jax
-
+from oceananigans_tpu.platform import poisson_transform
 from oceananigans_tpu.solvers.fft_poisson import FFTPoissonSolver
 from oceananigans_tpu.solvers.fourier_tridiagonal import (
     FourierTridiagonalPoissonSolver,
@@ -26,13 +25,7 @@ def make_pressure_solver(grid):
         return ImmersedPoissonSolver(grid)
     base = getattr(grid, "underlying_grid", grid)
     if base.regular:
-        # TPU: eigenbasis matmuls on the MXU — 2.4x faster than the XLA
-        # FFT chain at 256^3 AND correct (the composed
-        # dct/rfft/fft/irfft pipeline miscomputes periodic-axis modes by
-        # 2x on the TPU backend; each transform passes its roundtrip in
-        # isolation, the full fused chain does not — validated against
-        # float64). CPU keeps the FFT path (exact there, O(N log N)).
-        if jax.default_backend() != "cpu":
+        if poisson_transform() == "matmul":
             return MatmulPoissonSolver(base)
         return FFTPoissonSolver(base)
     if base.x_regular and base.y_regular:

@@ -3,7 +3,7 @@
 Reference: ``src/Solvers/batched_tridiagonal_solver.jl:12-46`` launches one
 GPU thread per (i,j) column; here the whole (Nx,Ny) batch advances one
 z-level per ``lax.scan`` step, so every scan step is a fully vectorized
-(Nx,Ny) plane op on the VPU. Direction-generic via ``axis``.
+(Nx,Ny) plane op. Direction-generic via ``axis``.
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ Reference layer: ``src/TimeSteppers/`` (SURVEY.md §2.10) —
 ``RungeKutta3TimeStepper`` (``runge_kutta_3.jl:10-19``), ``Clock``
 (``clock.jl:16``).
 
-TPU-native design: there is no stepper object mutating fields; each model
+Design: there is no stepper object mutating fields; each model
 exposes a pure ``step(state, dt) -> state`` assembled from these
 coefficient tables. The AB2 Euler first step is branch-free — coefficients
 are selected with ``jnp.where`` on the iteration counter, the jit-friendly
@@ -29,7 +29,7 @@ class Clock:
     """Traced time/iteration/stage (reference ``clock.jl:16``).
 
     DateTime-capable (reference ``clock.jl`` supports ``time::DateTime``):
-    the TPU-native form keeps the traced device scalar in SECONDS and
+    the form here keeps the traced device scalar in SECONDS and
     carries the calendar origin as static pytree metadata (``epoch``, a
     ``datetime.datetime`` or None) — the compiled step never touches
     calendar arithmetic. Construct with ``Clock.start(datetime(...))``

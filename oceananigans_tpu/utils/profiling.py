@@ -1,5 +1,5 @@
 """Tracing / profiling helpers (SURVEY §5: the reference has wall-time
-bookkeeping only; the TPU-native answer is ``jax.profiler`` traces plus
+bookkeeping only; the answer here is ``jax.profiler`` traces plus
 a per-step timing callback).
 
 Usage::

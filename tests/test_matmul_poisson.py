@@ -1,8 +1,9 @@
-"""MXU eigenbasis-matmul Poisson solver (TPU-default path): must agree
-with the FFT solver to machine precision on every topology mix."""
+"""Dense eigenbasis Poisson solver: must agree with the FFT solver to
+machine precision on every topology mix."""
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from oceananigans_tpu import Bounded, Flat, Periodic, RectilinearGrid
 from oceananigans_tpu.solvers.fft_poisson import FFTPoissonSolver
@@ -41,26 +42,38 @@ def test_matmul_poisson_2d():
     _check((Bounded, Flat, Bounded), (16, 8))
 
 
-def test_fused_middle_matches_einsum_path():
-    """The fused Pallas middle stage (y/z transforms + λ⁻¹ scale in one
-    VMEM pass, ``ops/pallas_poisson.py``) equals the six-einsum path in
-    interpret mode, including a tile-size-fallback shape."""
-    import jax
+@pytest.mark.parametrize("topology,size", [
+    ((Bounded, Periodic, Periodic), (16, 16, 16)),    # nonhydro cells
+    ((Periodic, Periodic, Bounded), (16, 16, 16)),    # upstream box
+    ((Periodic, Bounded, Bounded), (24, 12, 6)),      # hydro_vi
+    ((Bounded, Bounded, Bounded), (8, 12, 10)),
+])
+def test_fft_matches_matmul_float64_bench_topologies(topology, size):
+    """The two transforms ``platform.poisson_transform`` chooses between
+    agree in float64 on the topologies the bench cells use."""
+    _check(topology, size)
 
-    for size in ((32, 16, 128), (24, 16, 128)):
-        grid = RectilinearGrid(size=size, extent=(1.0, 2.0, 3.0),
-                               topology=(Bounded, Periodic, Periodic),
-                               halo=(1, 0, 0), dtype="float32")
-        s = MatmulPoissonSolver(grid)
-        rng = np.random.default_rng(3)
-        rhs = jnp.asarray(rng.standard_normal(size).astype(np.float32))
-        rhs = rhs - jnp.mean(rhs)
-        s.fused = False
-        ref = jax.jit(s.solve)(rhs)
-        s.fused = "interpret"
-        got = jax.jit(s.solve)(rhs)
-        err = float(jnp.max(jnp.abs(got - ref)) / jnp.max(jnp.abs(ref)))
-        assert err < 1e-5, (size, err)
+
+def test_horizontal_basis_matches_fft():
+    """The 2-D matmul basis inverts the horizontal Laplacian like the
+    DCT/FFT chain of the implicit free surface: forward then inverse is
+    the identity, and an eigenmode maps onto one coefficient."""
+    from oceananigans_tpu.solvers.matmul_poisson import (
+        MatmulHorizontalBasis,
+    )
+    grid = RectilinearGrid(size=(16, 12, 2), x=(0.0, 1.0), y=(0.0, 0.7),
+                           z=(0.0, 1.0),
+                           topology=(Periodic, Bounded, Bounded), halo=1)
+    basis = MatmulHorizontalBasis(grid)
+    x = np.random.default_rng(2).standard_normal((16, 12, 1))
+    back = np.asarray(basis.inverse(basis.forward(jnp.asarray(x))))
+    np.testing.assert_allclose(back, x, atol=1e-13)
+    xs = np.arange(16) / 16    # the basis rows are cos(2πki/N)
+    ys = (np.arange(12) + 0.5) * 0.7 / 12
+    X, Y = np.meshgrid(xs, ys, indexing="ij")
+    mode = (np.cos(2 * np.pi * 2 * X) * np.cos(np.pi * 3 * Y / 0.7))
+    coef = np.asarray(basis.forward(jnp.asarray(mode[..., None])))
+    assert (np.abs(coef) > 1e-9).sum() == 1
 
 
 def test_matmul_poisson_single_mode_exact():

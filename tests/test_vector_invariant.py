@@ -246,8 +246,8 @@ def test_weno_z_weights_no_float32_overflow_nan():
     The WENO-Z ratio tau/(beta+eps) reaches ~1e22 when smoothness is
     measured on the dimensional divergence flux (dxU ~ Ax*u ~ 1e7, so
     beta ~ 1e14 while eps = 1e-8); squaring overflowed float32 to inf
-    and the weight normalization returned inf/inf = NaN (caught on-chip
-    by tools/tpu_smoke.py hydro_vi in round 3). The reference never
+    and the weight normalization returned inf/inf = NaN (caught on an
+    accelerator by the float32 hydro_vi smoke case). The reference never
     sees this because it defaults to Float64; the capped form in
     WENO._z_alphas keeps non-extreme weights bit-identical."""
     grid = LatitudeLongitudeGrid(size=(48, 32, 8), longitude=(-30.0, 30.0),

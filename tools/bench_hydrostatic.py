@@ -25,6 +25,7 @@ from oceananigans_tpu.models import (
     WENOVectorInvariant,
 )
 from oceananigans_tpu.advection import WENO
+from oceananigans_tpu.platform import enable_compilation_cache
 
 
 def timeit(fn, *args, inner=30, repeats=3):
@@ -52,6 +53,7 @@ def timeit(fn, *args, inner=30, repeats=3):
 
 
 def main():
+    enable_compilation_cache()
     p = argparse.ArgumentParser()
     p.add_argument("--nx", type=int, default=360)
     p.add_argument("--ny", type=int, default=160)

@@ -12,6 +12,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 from oceananigans_tpu import RectilinearGrid, Periodic, Bounded
 from oceananigans_tpu.models import NonhydrostaticModel
+from oceananigans_tpu.platform import enable_compilation_cache
 
 N = int(os.environ.get("BENCH_N", "256"))
 INNER = int(os.environ.get("BENCH_INNER", "50"))
@@ -40,12 +41,12 @@ def timeit(fn, x0, inner=INNER, repeats=3):
 
 
 def main():
+    enable_compilation_cache()
     grid = RectilinearGrid(size=(N, N, N), extent=(1.0, 1.0, 1.0),
                            topology=(Bounded, Periodic, Periodic),
                            halo=(1, 0, 0), dtype="float32")
     model = NonhydrostaticModel(grid=grid,
-                                timestepper="QuasiAdamsBashforth2",
-                                fused_kernels="auto")
+                                timestepper="QuasiAdamsBashforth2")
     state = model.initial_state(
         u=lambda x, y, z: 0.01 * jnp.sin(8 * np.pi * x)
         * jnp.cos(6 * np.pi * y) * jnp.cos(2 * np.pi * z),
